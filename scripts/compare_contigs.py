@@ -1,13 +1,25 @@
-"""Compare two assemblies as canonical contig sequence sets.
+"""Compare two assemblies as canonical contig sequence sets, or one
+assembly with a recorded golden digest.
 
 The BASELINE.json north star is sequence-set equality of a.lines.fasta
 against the reference.  Usage:
     python scripts/compare_contigs.py ours.fasta theirs.fasta [--min-len N]
-Prints per-set stats, the overlap (exact canonical matches), and
-containment (contigs that are substrings of the other assembly).
+    python scripts/compare_contigs.py ours.fasta --golden golden.json
+    python scripts/compare_contigs.py ours.fasta          # print digest
+The first prints per-set stats, the overlap (exact canonical matches),
+and containment (contigs that are substrings of the other assembly).
+The others use contig_digest over every contig (no length cut).
+
+tests/golden/ecoli_4p6M_K260.json was recorded from the CPU path
+(JAX_PLATFORMS=cpu) of the tree that round 5 verified bit-identical to
+the reference: make_synth_fastq.py --glen 4600000 --pairs 550000
+--rlen 250 --insert 500 --seed 42, then the CLI with -K 260 --shard 0,
+then this script's digest mode on a.lines.fasta.
 """
 
 import argparse
+import hashlib
+import json
 import os
 import sys
 
@@ -39,6 +51,18 @@ def canon(s):
     return min(s, rc)
 
 
+def contig_digest(seqs):
+    """Digest of a contig set: count, total bp and the SHA-256 of the
+    sorted canonical sequences joined by newlines, so it depends on
+    neither contig order nor orientation."""
+    cs = sorted(canon(s) for s in seqs)
+    return {
+        "n_contigs": len(cs),
+        "total_bp": sum(len(s) for s in cs),
+        "sha256": hashlib.sha256("\n".join(cs).encode()).hexdigest(),
+    }
+
+
 def n50(lens):
     ls = sorted(lens, reverse=True)
     total = sum(ls)
@@ -53,9 +77,23 @@ def n50(lens):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("ours")
-    ap.add_argument("theirs")
+    ap.add_argument("theirs", nargs="?")
     ap.add_argument("--min-len", type=int, default=1000)
+    ap.add_argument("--golden", help="golden digest JSON to check against")
     args = ap.parse_args()
+
+    if args.theirs is None:
+        got = contig_digest(read_fasta(args.ours))
+        print(json.dumps(got))
+        if args.golden:
+            with open(args.golden) as f:
+                want = json.load(f)
+            want = {key: want[key] for key in got}
+            if got != want:
+                print(f"VERDICT: DIGEST MISMATCH (golden {want})")
+                sys.exit(1)
+            print("VERDICT: MATCHES GOLDEN DIGEST")
+        return
 
     a = [s for s in read_fasta(args.ours) if len(s) >= args.min_len]
     b = [s for s in read_fasta(args.theirs) if len(s) >= args.min_len]

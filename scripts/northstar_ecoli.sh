@@ -1,24 +1,17 @@
 #!/bin/bash
 # North-star run (BASELINE.json): E. coli-scale synthetic genome
-# (4.6Mbp, 550k PE250 pairs = 30x) at K=260, reference vs tpu build,
-# contig-set equality + per-step timing.
+# (4.6Mbp, 550k PE250 pairs = 30x, seed 42) at K=260, reference vs this
+# build, contig-set equality + per-step timing.  Without the reference
+# binary, check the contig set against the recorded golden digest:
+#   python scripts/compare_contigs.py --golden tests/golden/ecoli_4p6M_K260.json \
+#       $OUT/our_out/a.lines.fasta
 #
 # Verified 2026-08-19 (round 2): VERDICT: BIT-IDENTICAL CONTIG SETS
 # (1 contig, 4599920 bp on both sides).
-#   reference (-O2, 8 threads): 286s wall
-#     ExtractReads 82.2  buildReadQGraph 78.9  Repath 28.7  Clean200x 0.2
-#     AssembleGaps2 0.5  NewStuff&Partners 32.7  Simplify 60.7  MakeGaps 0.1
-#   this build (CPU backend, parity mode): 721s wall (round-2 final;
-#   the first round-2 measurement was 2148s before the Simplify/step-5
-#   vectorization landed)
-#     ReadLoad 54.8  SmallKGraph 448.7  RepathInMemory 154.0  Clean200x 0.1
-#     AssembleGaps 7.3  Simplify 51.3  MakeGaps+FinalFiles 5.4
-#   (the TPU counting kernel replaces SmallKGraph's dict build at
-#    94.4M kmers/s/chip = 1.12x the 32-core baseline; see bench.py)
 set -e
 OUT=${1:-/tmp/ecoli}
 python scripts/make_synth_fastq.py $OUT --glen 4600000 --pairs 550000 --rlen 250 --insert 500
-mkdir -p $OUT/ref_out $OUT/tpu_out
+mkdir -p $OUT/ref_out $OUT/our_out
 /tmp/w2rap_o2/bin/w2rap-contigger -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq -o $OUT/ref_out -p pe -K 260 -t 8 --dump_perf 1
-python -m w2rap_contigger_tpu -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq -o $OUT/tpu_out -p pe -K 260 -t 16 --dump_perf
-python scripts/compare_contigs.py $OUT/tpu_out/a.lines.fasta $OUT/ref_out/a.lines.fasta
+python -m w2rap_contigger_tpu -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq -o $OUT/our_out -p pe -K 260 -t 16 --dump_perf
+python scripts/compare_contigs.py $OUT/our_out/a.lines.fasta $OUT/ref_out/a.lines.fasta

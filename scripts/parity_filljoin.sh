@@ -11,9 +11,9 @@ OUT=${1:-/tmp/parity_fj}
 BIN=${2:-/tmp/w2rap_fj/bin/w2rap-contigger}
 python scripts/make_synth_fastq.py $OUT --glen 200000 --pairs 10000 \
     --rlen 250 --insert 500 --seed 11
-mkdir -p $OUT/ref_out $OUT/tpu_out
+mkdir -p $OUT/ref_out $OUT/our_out
 $BIN -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq -o $OUT/ref_out -p pe -K 200 -t 8
-W2RAP_PLATFORM=${W2RAP_PLATFORM:-cpu} python -m w2rap_contigger_tpu \
-    -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq -o $OUT/tpu_out -p pe -K 200 \
+JAX_PLATFORMS=${JAX_PLATFORMS:-cpu} python -m w2rap_contigger_tpu \
+    -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq -o $OUT/our_out -p pe -K 200 \
     --fill_join
-python scripts/compare_contigs.py $OUT/tpu_out/a.lines.fasta $OUT/ref_out/a.lines.fasta
+python scripts/compare_contigs.py $OUT/our_out/a.lines.fasta $OUT/ref_out/a.lines.fasta

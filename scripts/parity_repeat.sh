@@ -12,9 +12,9 @@ set -e
 OUT=${1:-/tmp/rep}
 python scripts/make_synth_fastq.py $OUT --glen 500000 --pairs 60000 \
     --rlen 250 --insert 500 --repeats 12 --repeat_len 3000 --dips 4 --seed 7
-mkdir -p $OUT/ref_out $OUT/tpu_out
+mkdir -p $OUT/ref_out $OUT/our_out
 /tmp/w2rap_o2/bin/w2rap-contigger -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq \
     -o $OUT/ref_out -p pe -K 200 -t 8
 python -m w2rap_contigger_tpu -r $OUT/reads_R1.fastq,$OUT/reads_R2.fastq \
-    -o $OUT/tpu_out -p pe -K 200 -t 16
-python scripts/compare_contigs.py $OUT/tpu_out/a.lines.fasta $OUT/ref_out/a.lines.fasta
+    -o $OUT/our_out -p pe -K 200 -t 16
+python scripts/compare_contigs.py $OUT/our_out/a.lines.fasta $OUT/ref_out/a.lines.fasta

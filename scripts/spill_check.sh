@@ -14,7 +14,7 @@ set -e
 DATA=${1:-/tmp/ecoli}
 OUT=${2:-/tmp/spill_check}
 rm -rf $OUT && mkdir -p $OUT/batched $OUT/plain
-export W2RAP_PLATFORM=cpu
+export JAX_PLATFORMS=${JAX_PLATFORMS:-cpu}
 python -u -m w2rap_contigger_tpu -r $DATA/reads_R1.fastq,$DATA/reads_R2.fastq \
     -o $OUT/batched -p pe -K 260 --to_step 2 -d 4 -m 4 \
     --tmp_dir $OUT/tmp --dump_perf

@@ -148,8 +148,9 @@ def test_lookup_words(rng):
 
 @pytest.mark.parametrize("k", [31, 60])
 def test_count_kmers_device_parity(rng, k):
-    """The on-device pipeline (Pallas sort+collapse, interpret mode) must
-    reproduce count_kmers exactly: same dict, counts, contexts, hist."""
+    """The on-device pipeline (one sort + collapse_planes, run here on
+    the CPU) must reproduce count_kmers exactly: same dict, counts,
+    contexts, hist."""
     L = k + 25
     bases, lengths, quals = make_reads(rng, 200, L)
     quals = np.where(rng.random((200, L)) < 0.1, 3, quals).astype(np.uint8)
@@ -162,7 +163,7 @@ def test_count_kmers_device_parity(rng, k):
     )
     dev_d, dev_hist = ke.count_kmers_device(
         bases, lengths, quals, k, min_qual=7, min_freq=2,
-        chunk_reads=128, interpret=True,
+        chunk_reads=128,
     )
     np.testing.assert_array_equal(dev_d.words, ref_d.words)
     np.testing.assert_array_equal(dev_d.counts, ref_d.counts)
@@ -178,7 +179,7 @@ def test_count_kmers_device_range_partition(rng):
     parts = []
     for ri in range(4):
         d, _ = ke.count_kmers_device(
-            bases, lengths, quals, k, min_freq=1, interpret=True,
+            bases, lengths, quals, k, min_freq=1,
             range_bits=2, range_index=ri,
         )
         parts.append(d)
@@ -210,63 +211,54 @@ def test_count_kmers_parity_k_mult16(rng, k):
 
 
 def test_count_kmers_flat_device_parity(rng):
-    """Flat counting via the device pipeline (interpret) == host path."""
+    """Flat counting via the device pipeline == host path."""
     k = 31
     seqs = [rng.integers(0, 4, size=int(n)).astype(np.uint8)
             for n in rng.integers(20, 200, size=25)]
     seg = np.zeros(len(seqs) + 1, dtype=np.int64)
     seg[1:] = np.cumsum([len(s) for s in seqs])
     flat = np.concatenate(seqs)
-    d_host = ke.count_kmers_flat(flat, seg, k, min_freq=2, chunk_pos=512,
-                                 device_pipeline=False)
+    d_host = ke.count_kmers_flat(flat, seg, k, min_freq=2, chunk_pos=512)
     d_dev = ke.count_kmers_flat(flat, seg, k, min_freq=2, chunk_pos=512,
-                                interpret=True)
+                                force_device=True)
     np.testing.assert_array_equal(d_dev.words, d_host.words)
     np.testing.assert_array_equal(d_dev.counts, d_host.counts)
     np.testing.assert_array_equal(d_dev.ctx, d_host.ctx)
 
 
-def test_count_kmers_device_pallas_backend(rng, monkeypatch):
-    """The pallas-sort backend (interpret) matches the default path."""
-    k = 31
-    bases, lengths, quals = make_reads(rng, 100, 60, with_quals=False)
-    ref_d, ref_hist = ke.count_kmers_device(
-        bases, lengths, quals, k, min_freq=2, interpret=True
-    )
-    monkeypatch.setenv("W2RAP_SORT", "pallas")
-    dev_d, dev_hist = ke.count_kmers_device(
-        bases, lengths, quals, k, min_freq=2, interpret=True
-    )
-    np.testing.assert_array_equal(dev_d.words, ref_d.words)
-    np.testing.assert_array_equal(dev_d.counts, ref_d.counts)
-    np.testing.assert_array_equal(dev_d.ctx, ref_d.ctx)
-    np.testing.assert_array_equal(dev_hist, ref_hist)
+@pytest.mark.parametrize("min_freq", [1, 4])
+@pytest.mark.parametrize("k", [31, 60, 100, 200])
+def test_device_count_matches_native(rng, k, min_freq):
+    """The production entry point's device path (forced on the CPU) is
+    bit-equal to its native host path: words, counts, contexts and the
+    histogram.  k=31/60 sort with the context in the pad bits or as a
+    payload plane, k=200 takes the multi-pass big-W sort."""
+    L = k + 30
+    bases, lengths, quals = make_reads(rng, 160, L, with_quals=False)
+    lengths[:] = L
+    quals[rng.random(quals.shape) < 0.005] = 3
+    bases = np.concatenate([bases] + [bases[:40]] * 5, axis=0)
+    lengths = np.concatenate([lengths] + [lengths[:40]] * 5)
+    quals = np.concatenate([quals] + [quals[:40]] * 5, axis=0)
+    d_n, h_n = ke.count_kmers_batched(bases, lengths, quals, k,
+                                      min_freq=min_freq)
+    d_d, h_d = ke.count_kmers_batched(bases, lengths, quals, k,
+                                      min_freq=min_freq, force_device=True)
+    assert d_n.size > 0
+    np.testing.assert_array_equal(d_d.words, d_n.words)
+    np.testing.assert_array_equal(d_d.counts, d_n.counts)
+    np.testing.assert_array_equal(d_d.ctx, d_n.ctx)
+    np.testing.assert_array_equal(h_d, h_n)
 
 
-@pytest.mark.parametrize("k", [21, 31, 60])
-def test_count_kmers_device_radix_backend(rng, monkeypatch, k):
-    """The partition-sort backend (interpret) matches the default path
-    bit for bit, including the histogram (k=21 exercises the
-    ctx-in-pad-bits packing, k=31 the separate payload plane, k=60 the
-    4-word key with the 2-word comparator + collision check)."""
-    from w2rap_contigger_tpu.ops import pallas_radix as prad
+def test_pack_rows_host_matches_device(rng):
+    import jax.numpy as jnp
 
-    L = max(60, k + 10)
-    bases, lengths, quals = make_reads(rng, 100, L, with_quals=False)
-    ref_d, ref_hist = ke.count_kmers_device(
-        bases, lengths, quals, k, min_freq=2, interpret=True
-    )
-    # shrink the tile/region so the partition path engages at test scale
-    monkeypatch.setattr(prad, "DEFAULT_TILE_ROWS", 16)
-    monkeypatch.setattr(prad, "DEFAULT_REGION_ROWS", 64)
-    monkeypatch.setenv("W2RAP_SORT", "radix")
-    dev_d, dev_hist = ke.count_kmers_device(
-        bases, lengths, quals, k, min_freq=2, interpret=True
-    )
-    np.testing.assert_array_equal(dev_d.words, ref_d.words)
-    np.testing.assert_array_equal(dev_d.counts, ref_d.counts)
-    np.testing.assert_array_equal(dev_d.ctx, ref_d.ctx)
-    np.testing.assert_array_equal(dev_hist, ref_hist)
+    for L in (250, 64, 7):
+        bases = rng.integers(0, 4, size=(33, L)).astype(np.uint8)
+        np.testing.assert_array_equal(
+            ke.pack_rows_host(bases), np.asarray(ke.pack_rows(jnp.asarray(bases)))
+        )
 
 
 def test_count_kmers_batched_spill_and_auto_escalation(rng, tmp_path):
@@ -367,11 +359,11 @@ def test_device_resident_dict(monkeypatch, rng):
     quals = np.full((n, L), 35, np.uint8)
     monkeypatch.delenv("W2RAP_DEV_DICT", raising=False)
     d0, h0 = ke.count_kmers_device(
-        bases, lengths, quals, k, min_freq=2, interpret=True
+        bases, lengths, quals, k, min_freq=2
     )
     monkeypatch.setenv("W2RAP_DEV_DICT", "1")
     d1, h1 = ke.count_kmers_device(
-        bases, lengths, quals, k, min_freq=2, interpret=True
+        bases, lengths, quals, k, min_freq=2
     )
     assert d1.dev is not None
     assert d1.size == d0.size
@@ -408,7 +400,7 @@ def test_device_dict_step2_graph_equal(monkeypatch, rng):
     for env in ("0", "1"):
         monkeypatch.setenv("W2RAP_DEV_DICT", env)
         d, _ = ke.count_kmers_device(
-            bases, lengths, quals, k, min_freq=2, interpret=True
+            bases, lengths, quals, k, min_freq=2
         )
         assert (d.dev is not None) == (env == "1")
         gb.recompute_adjacencies(d)

@@ -37,24 +37,8 @@ def genome_and_reads():
     return genome, reads
 
 
-def test_full_pipeline(tmp_path, genome_and_reads):
-    genome, reads = genome_and_reads
-    out = str(tmp_path)
-    hbv, paths = run_pipeline(
-        out_dir=out,
-        reads=reads,
-        large_k=100,
-        min_freq=4,
-        min_qual=7,
-        dump_all=True,
-        chunk_reads=2048,
-    )
-    # outputs exist
-    for f in ["a.lines.fasta", "stats", "a_contigs_raw.gfa", "pe_assembly_raw.gfa"]:
-        assert os.path.exists(f"{out}/{f}"), f
-    # contigs cover the genome: total length close to genome size and the
-    # longest contig spans a large fraction
-    with open(f"{out}/a.lines.fasta") as f:
+def read_contigs(path):
+    with open(path) as f:
         contigs = []
         cur = []
         for line in f:
@@ -66,6 +50,27 @@ def test_full_pipeline(tmp_path, genome_and_reads):
                 cur.append(line.strip())
         if cur:
             contigs.append("".join(cur))
+    return contigs
+
+
+def test_full_pipeline(tmp_path, genome_and_reads):
+    genome, reads = genome_and_reads
+    out = str(tmp_path)
+    hbv, paths = run_pipeline(
+        out_dir=out,
+        reads=reads,
+        large_k=100,
+        min_freq=4,
+        min_qual=7,
+        dump_all=True,
+        chunk_reads=2048, shard_devices=0,
+    )
+    # outputs exist
+    for f in ["a.lines.fasta", "stats", "a_contigs_raw.gfa", "pe_assembly_raw.gfa"]:
+        assert os.path.exists(f"{out}/{f}"), f
+    # contigs cover the genome: total length close to genome size and the
+    # longest contig spans a large fraction
+    contigs = read_contigs(f"{out}/a.lines.fasta")
     assert contigs, "no contigs written"
     total = sum(len(c) for c in contigs)
     longest = max(len(c) for c in contigs)
@@ -83,16 +88,36 @@ def test_full_pipeline(tmp_path, genome_and_reads):
                 )
 
 
+def test_device_path_matches_host_path(tmp_path, genome_and_reads,
+                                       monkeypatch):
+    """The device forms of steps 2-3 (whole-stream count, device-resident
+    dictionary, pointer-doubling unitigs, device pathing), run here on
+    the CPU by making the backend rule see a GPU, give the host path's
+    contig set."""
+    import jax
+
+    _, reads = genome_and_reads
+    sets = []
+    for backend in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        out = str(tmp_path / backend)
+        run_pipeline(out_dir=out, reads=reads, large_k=100, min_freq=4,
+                     min_qual=7, chunk_reads=2048, shard_devices=0)
+        sets.append(sorted(read_contigs(f"{out}/a.lines.fasta")))
+    assert sets[0] and sets[0] == sets[1]
+
+
 def test_checkpoint_resume(tmp_path, genome_and_reads):
     genome, reads = genome_and_reads
     out = str(tmp_path)
     run_pipeline(
         out_dir=out, reads=reads, large_k=100, to_step=3, dump_all=True,
-        chunk_reads=2048,
+        chunk_reads=2048, shard_devices=0,
     )
     # resume from step 4
     hbv, paths = run_pipeline(
-        out_dir=out, reads=reads, large_k=100, from_step=4, chunk_reads=2048
+        out_dir=out, reads=reads, large_k=100, from_step=4, chunk_reads=2048,
+        shard_devices=0,
     )
     assert os.path.exists(f"{out}/a.lines.fasta")
 
@@ -105,7 +130,7 @@ def test_full_pipeline_k128(tmp_path, genome_and_reads):
     out = str(tmp_path)
     run_pipeline(
         out_dir=out, reads=reads, large_k=128, min_freq=4, min_qual=7,
-        chunk_reads=2048,
+        chunk_reads=2048, shard_devices=0,
     )
     with open(f"{out}/a.lines.fasta") as f:
         contigs = [l.strip() for l in f if not l.startswith(">")]
@@ -122,7 +147,7 @@ def test_full_pipeline_k200(tmp_path):
     out = str(tmp_path)
     run_pipeline(
         out_dir=out, reads=reads, large_k=200, min_freq=4, min_qual=7,
-        chunk_reads=2048,
+        chunk_reads=2048, shard_devices=0,
     )
     with open(f"{out}/a.lines.fasta") as f:
         contigs = [l.strip() for l in f if not l.startswith(">")]

@@ -30,8 +30,8 @@ def test_count_kmers_k_above_read_len(short_reads):
 
 def test_count_kmers_device_k_above_read_len(short_reads):
     r = short_reads
-    d, hist = ke.count_kmers_device(
-        r.bases, r.lengths, r.quals, 260, min_freq=1, interpret=True
+    d, hist = ke.count_kmers_batched(
+        r.bases, r.lengths, r.quals, 260, min_freq=1, force_device=True
     )
     assert d.size == 0 and hist.sum() == 0
 

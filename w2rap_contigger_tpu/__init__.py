@@ -1,8 +1,8 @@
-"""w2rap_contigger_tpu — a TPU-native (JAX/XLA/Pallas) Illumina PE contig assembler.
+"""w2rap_contigger_tpu — a JAX/XLA Illumina PE contig assembler.
 
 A from-scratch reimplementation of the capabilities of
-bioinfologics/w2rap-contigger (DISCOVAR-lineage C++/OpenMP assembler,
-reference at /root/reference) designed TPU-first:
+bioinfologics/w2rap-contigger (DISCOVAR-lineage C++/OpenMP assembler)
+designed for data-parallel accelerators:
 
 * reads live in dense 2-bit-packed tensors (core.reads),
 * the k=60 de Bruijn dictionary is built by a sorted-kmer engine

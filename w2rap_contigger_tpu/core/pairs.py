@@ -2,7 +2,7 @@
 
 * :class:`PairsManager` — read-pair + library bookkeeping with
   per-library separation/σ (reference ``src/PairsManager.h:25-294``,
-  ``PM_Library`` at ``:71-110``). The TPU build keeps pairs implicit
+  ``PM_Library`` at ``:71-110``). This build keeps pairs implicit
   (read 2i ↔ 2i+1, the reference's innie convention) and this class
   carries the library metadata and pair→read queries on top, including
   separation estimation from an observed separation sample (the

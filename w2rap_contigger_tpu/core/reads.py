@@ -2,7 +2,7 @@
 
 The reference stores reads as a MasterVec of 2-bit packed BaseVecs plus
 block-compressed quality PQVecs (src/feudal/BaseVec.h, src/feudal/PQVec.h).
-TPU-first redesign: one dense (N, Lmax) uint8 code matrix plus a length
+Data-parallel redesign: one dense (N, Lmax) uint8 code matrix plus a length
 vector — fixed shapes, directly shardable, kernel-friendly.  Reads are
 paired by adjacency: read 2i and 2i+1 are a pair (reference PairsManager
 convention for innie PE libraries, src/PairsManager.h:120).

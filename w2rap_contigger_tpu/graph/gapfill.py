@@ -1,6 +1,6 @@
 """fillGaps + joinOverlaps — optional step-2 graph repair passes.
 
-Semantics matched (TPU-native reformulation, not a translation):
+Semantics matched (data-parallel reformulation, not a translation):
 
 * ``fill_gaps`` — GapFiller + fillGaps
   (reference src/paths/long/BuildReadQGraph.cc:566-651): path every read

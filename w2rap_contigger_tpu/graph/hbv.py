@@ -5,7 +5,7 @@ digraphE<basevector>: edges are base sequences that overlap by K-1 at
 vertices; both orientations of every edge are present and related by the
 involution map (HyperBasevector.cc:648).
 
-TPU-first redesign: a structure-of-arrays graph — flat uint8 base pool +
+Data-parallel redesign: a structure-of-arrays graph — flat uint8 base pool +
 offset table, to_left/to_right vertex arrays, involution permutation —
 so per-edge and per-vertex passes are vectorized gathers instead of
 object traversals.  Small-graph surgery mutates the numpy arrays on host;

@@ -1,8 +1,8 @@
 """Native (C++) runtime components.
 
 The reference's runtime layer is C++ (IO, containers, thread pools —
-SURVEY §1 L0/L1/L4); the TPU build keeps the compute path in
-JAX/XLA/Pallas and implements the host runtime's hot IO in C++ with a
+SURVEY §1 L0/L1/L4); this build keeps the compute path in
+JAX/XLA and implements the host runtime's hot IO in C++ with a
 plain C ABI loaded via ctypes (pybind11 is not available in this
 environment). Modules build on demand with g++ and cache the shared
 library next to the sources; every native entry point has a pure-Python

@@ -4,7 +4,7 @@
 // (src/paths/long/large/ExtractReads.cc:45-688, gzip via popen'd zcat
 // through src/FastIfstream.h:90). Here: an in-process zlib inflate +
 // a single-pass fastq tokenizer that fills dense (N, Lmax) uint8
-// base-code / quality tensors directly — the layout the TPU kernels
+// base-code / quality tensors directly — the layout the device kernels
 // consume (core/reads.py) — with no Python-object intermediates.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).

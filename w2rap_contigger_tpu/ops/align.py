@@ -7,14 +7,14 @@ optionally penalizing left/right outer gaps), ``SmithWatAffine.h:22-36``
 (global alignment, mismatch 3 / gap-open 12 / gap-extend 1). All
 reference scoring is integer penalty sums; we keep int32 math.
 
-TPU-first redesign: the hot use is many small alignments at once (friend
+Data-parallel redesign: the hot use is many small alignments at once (friend
 alignment stacks, gap patching), so the device path is a **batched
 banded DP** — the band is a fixed-width lane dimension, rows advance
 under ``jax.lax.scan``, and the whole thing ``vmap``s over the batch.
 Shapes are static (bandwidth and max length are compile-time); padding
 rows are masked. Traceback (irregular, sequential) runs host-side from
 the device-computed cost surface, mirroring the §7.1 split of dense
-scoring on TPU / pointer-chasing on host.
+scoring on the device / pointer-chasing on host.
 """
 
 from __future__ import annotations

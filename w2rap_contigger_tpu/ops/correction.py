@@ -104,7 +104,7 @@ def _batched_stacks(ids1, friends, bases, lengths, quals, C, Rb):
     """(B, Rb, C) strict stacks for founder reads ids1 (all of length C),
     rows padded to Rb with UNDEF.  One flat gather builds every stack of
     the bucket at once (the batched (blobs, rows, cols) readstack form:
-    stack shapes are the shapes a TPU wants, ReadStack.cc:111-161)."""
+    stack shapes are dense batched shapes, ReadStack.cc:111-161)."""
     B = len(ids1)
     rows_i = (friends.offs[ids1 + 1] - friends.offs[ids1]) + 1
     tot = int(rows_i.sum())

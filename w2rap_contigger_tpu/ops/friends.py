@@ -8,7 +8,7 @@ on a common unipath with overlapping spans become friend candidates, and
 every candidate is validated by requiring a >=K-base exact match run at
 the implied offset (ValidateAlign, FriendAlignFinder.h:29-60).
 
-TPU-native redesign: sorting replaces the unipath-graph indirection.  A
+Data-parallel redesign: sorting replaces the unipath-graph indirection.  A
 validated friend alignment at offset o exists iff the two reads share an
 exact K-mer at that offset, so we kmerize + canonicalize every read
 (dense numpy bit-ops), sort the (kmer, read, pos, rc) records, and emit

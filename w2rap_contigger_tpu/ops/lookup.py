@@ -1,6 +1,6 @@
 """Vectorized multiword binary search into the sorted kmer table.
 
-This is the TPU replacement for KmerDict::findEntry hash probes
+This is the data-parallel replacement for KmerDict::findEntry hash probes
 (src/kmers/ReadPather.h:177, feudal/HashSet.h): the dictionary is a
 lexicographically sorted (M, W) uint32 array and lookup is a batched
 binary search — log2(M) rounds of 4-word gathers on the VPU, thousands of

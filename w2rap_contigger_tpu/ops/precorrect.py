@@ -12,7 +12,7 @@ per group, the center-base column is voted by quality sums; a base loses
 has <= 1 quality>=20 observation, and q_sum[loser] < 0.25 * winner.
 Flank-palindromic groups and groups smaller than 6 are skipped.
 
-TPU-first design: the flank is packed into 2 uint32 words (24 bases);
+Data-parallel design: the flank is packed into 2 uint32 words (24 bases);
 one lax.sort groups all occurrences; per-base q_sum / n_q_high come from
 segmented-cumsum differences; the fix mask and winner are elementwise.
 """

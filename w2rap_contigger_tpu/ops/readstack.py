@@ -4,7 +4,7 @@ Reference: src/paths/long/ReadStack.{h,cc} (the friend-pile engine used
 throughout step 5's CorrectionSuite).  The stack is dense:
 bases (rows, cols) int8 (-1 = undefined cell) and quals (rows, cols)
 int16 (-1 = undefined).  All core operations are pure column reductions
-— ideal TPU shapes; this module implements them vectorized (numpy now,
+— dense batched shapes; this module implements them vectorized (numpy now,
 jnp-compatible by construction) so AssembleGaps2 can batch thousands of
 blob stacks as (blobs, rows, cols) tensors.
 

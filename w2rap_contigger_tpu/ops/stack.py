@@ -6,7 +6,7 @@ Data model: dense numpy arrays (rows, cols) — bases int8 with -1 for an
 undefined cell (the reference uses ' '), quals int16 with -1 undefined —
 plus per-row metadata (id, rc2, pid, pair_pos, offset, len).  Every
 operation is a masked column reduction or a sliding-window reduction,
-i.e. the shapes a TPU wants; stacks per blob are tiny (<=MAX_STACK rows,
+i.e. dense batched shapes; stacks per blob are tiny (<=MAX_STACK rows,
 ~read-length columns), so the host vectorized form is the fast path.
 The batched (stacks, rows, cols) form of the Correct1Pre chain
 (construction + HighQualDiff + HighQualDiffWindow + CorrectAll as one

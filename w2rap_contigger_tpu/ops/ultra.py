@@ -10,7 +10,7 @@ sequences believed true, overlapping by up to K−1, plus per-read
 rate model scoring a candidate sequence against observed threads) and
 ``MultipleAligner``/``Prefab`` (gap consensus → corrected read).
 
-TPU-first shape: the block/solid-column detection is a dense columnwise
+Data-parallel shape: the block/solid-column detection is a dense columnwise
 reduction over the threaded stack (same layout as ops/stack.py), and
 thread scoring is the batched banded DP from ops/align.py; the
 candidate search (medoid + refinement) is host-side control flow over

@@ -1,8 +1,8 @@
 """Multi-chip scaling: kmer-space sharding over a jax.sharding.Mesh.
 
-The reference is single-node OpenMP (SURVEY.md §5.8); the TPU-native
+The reference is single-node OpenMP (SURVEY.md §5.8); the multi-device
 equivalent shards reads data-parallel across chips, counts kmers locally,
-then exchanges kmers by hash range over ICI so each chip owns a disjoint
+then exchanges kmers by hash range (NVLink all-to-all) so each chip owns a disjoint
 canonical-kmer range — the all-to-all analogue of the reference's
 disk-batch k-way merge (BuildReadQGraph.cc:1120-1250).
 
@@ -88,7 +88,7 @@ def count_kmers_sharded(
     ops.kmer_engine.count_kmers on the same reads.
 
     Per chunk of D*chunk_reads reads: each chip kmerizes its read shard,
-    kmers travel to their hash-owner chip via one ICI all-to-all, and
+    kmers travel to their hash-owner chip via one all-to-all, and
     each chip sort+collapses what it owns.  Bucket capacity overflow is
     DETECTED (psum of per-bucket loads) and the chunk retried at twice
     the capacity — kmers are never silently dropped.  Host-side, the
@@ -171,6 +171,14 @@ def _sharded_chunk_step(bases, lengths, quals, k, mesh, min_qual, cap):
     """One all-to-all counting chunk.  Returns per-chip (sorted unique
     words (D*rows, W), ctx, cnt, n_unique (D,), overflow (D,) [replicated
     psum — nonzero iff any bucket anywhere exceeded cap])."""
+    return _chunk_step_fn(mesh, k, min_qual, cap)(bases, lengths, quals)
+
+
+# The sharded steps below are jitted whole and cached per mesh and static
+# arguments: a shard_map called outside jit runs its body op by op, one
+# compiled program per operation.
+@functools.lru_cache(maxsize=None)
+def _chunk_step_fn(mesh, k, min_qual, cap):
     D = mesh.shape[AXIS]
     W = bk.nwords(k)
 
@@ -216,7 +224,7 @@ def _sharded_chunk_step(bases, lengths, quals, k, mesh, min_qual, cap):
         ow, octx, ocnt, nu = ke.sort_collapse(rw, rc, rn, W)
         return ow, octx, ocnt, nu[None], overflow[None]
 
-    return step(bases, lengths, quals)
+    return jax.jit(step)
 
 
 def flat_leaf_sharded(mesh: Mesh, cb, valid, hp, hs, pc, sc, k: int):
@@ -225,6 +233,11 @@ def flat_leaf_sharded(mesh: Mesh, cb, valid, hp, hs, pc, sc, k: int):
     runs).  Inputs are stacked (D, ...) host arrays; returns per-chip
     (sorted unique words (D, C, W), ctx (D, C), counts (D, C),
     n_unique (D,))."""
+    return _flat_leaf_fn(mesh, k)(cb, valid, hp, hs, pc, sc)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_leaf_fn(mesh, k):
     W = bk.nwords(k)
 
     @functools.partial(
@@ -241,7 +254,7 @@ def flat_leaf_sharded(mesh: Mesh, cb, valid, hp, hs, pc, sc, k: int):
         ow, octx, ocnt, nu = ke._sort_collapse_leaf_impl(cw, cctx, W)
         return ow[None], octx[None], ocnt[None], nu[None, None]
 
-    return step(cb, valid, hp, hs, pc, sc)
+    return jax.jit(step)
 
 
 def build_links_sharded(mesh: Mesh, words, ctx, k: int, n_iters: int):
@@ -251,11 +264,16 @@ def build_links_sharded(mesh: Mesh, words, ctx, k: int, n_iters: int):
     (BuildReadQGraph.cc:195-337).  Bit-identical to single-chip: chips
     compute disjoint contiguous slices of next[] that concatenate along
     the mesh axis."""
+    D = mesh.shape[AXIS]
+    assert (2 * words.shape[0]) % D == 0  # quantum-padded, D a power of 2
+    return _links_fn(mesh, k, n_iters)(words, ctx)
+
+
+@functools.lru_cache(maxsize=None)
+def _links_fn(mesh, k, n_iters):
     from ..graph import build as gb
 
     D = mesh.shape[AXIS]
-    M = words.shape[0]
-    assert (2 * M) % D == 0  # M is quantum-padded, D a power of two
 
     @functools.partial(
         jax.shard_map,
@@ -265,12 +283,12 @@ def build_links_sharded(mesh: Mesh, words, ctx, k: int, n_iters: int):
         check_vma=False,  # per-chip disjoint slices; no collectives
     )
     def step(w, c):
-        per = (2 * M) // D
+        per = (2 * w.shape[0]) // D
         di = jax.lax.axis_index(AXIS)
         node_ids = di * per + jnp.arange(per, dtype=jnp.int32)
         return gb._links_core(w, c, k, n_iters, node_ids)
 
-    return step(words, ctx)
+    return jax.jit(step)
 
 
 def recompute_adjacencies_sharded(mesh: Mesh, words, ctx, k: int,
@@ -278,11 +296,13 @@ def recompute_adjacencies_sharded(mesh: Mesh, words, ctx, k: int,
     """Adjacency pruning (8 dictionary searches per kmer) with rows
     sharded across chips and the table replicated (the AdjProc loop,
     kmers/ReadPather.h:307-342).  Bit-identical to single-chip."""
-    from ..graph import build as gb
+    assert words.shape[0] % mesh.shape[AXIS] == 0
+    return _adjacencies_fn(mesh, k, n_iters)(words, words, ctx)
 
-    D = mesh.shape[AXIS]
-    M = words.shape[0]
-    assert M % D == 0
+
+@functools.lru_cache(maxsize=None)
+def _adjacencies_fn(mesh, k, n_iters):
+    from ..graph import build as gb
 
     @functools.partial(
         jax.shard_map,
@@ -294,7 +314,7 @@ def recompute_adjacencies_sharded(mesh: Mesh, words, ctx, k: int,
     def step(w_full, w_rows, c_rows):
         return gb._adjacencies_core(w_full, w_rows, c_rows, k, n_iters)
 
-    return step(words, words, ctx)
+    return jax.jit(step)
 
 
 def list_rank_sharded(mesh: Mesh, nxt, n_iters: int):
@@ -303,17 +323,21 @@ def list_rank_sharded(mesh: Mesh, nxt, n_iters: int):
     multi-chip form).
 
     Each round reads ptr/dist at arbitrary node indices, so chips
-    exchange their shard (all_gather over ICI) and then gather locally:
-    the random-access gather bandwidth — the phase's actual wall —
-    splits D ways while the all-gather rides ICI at ~2 x array bytes per
-    round.  Bit-identical to single-chip: integer pointer jumping with a
+    exchange their shard (all_gather) and then gather locally: the
+    random-access gather bandwidth — the phase's actual wall — splits D
+    ways while the all-gather moves ~2 x array bytes per round.
+    Bit-identical to single-chip: integer pointer jumping with a
     deterministic schedule.  Returns (head, rank, on_cycle) sharded
     along the mesh axis (concatenating = the single-chip result).
     """
+    # quantum-padded node space, D a power of 2
+    assert nxt.shape[0] % (2 * mesh.shape[AXIS]) == 0
+    return _rank_fn(mesh, n_iters)(nxt)
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_fn(mesh, n_iters):
     D = mesh.shape[AXIS]
-    N2 = nxt.shape[0]
-    assert N2 % (2 * D) == 0  # quantum-padded node space, D a power of 2
-    M = N2 // 2
 
     @functools.partial(
         jax.shard_map,
@@ -322,6 +346,8 @@ def list_rank_sharded(mesh: Mesh, nxt, n_iters: int):
         out_specs=(jax.P(AXIS),) * 3,
     )
     def step(nxt_full):
+        N2 = nxt_full.shape[0]
+        M = N2 // 2
         per = N2 // D
         di = jax.lax.axis_index(AXIS)
         n = (di * per + jnp.arange(per, dtype=jnp.int32)).astype(jnp.int32)
@@ -354,9 +380,10 @@ def list_rank_sharded(mesh: Mesh, nxt, n_iters: int):
         )
         return ptr_sh, dist_sh, prev_of_ptr >= 0
 
-    return step(nxt)
+    return jax.jit(step)
 
 
+@functools.lru_cache(maxsize=None)
 def make_lookup_flat_sharded(mesh: Mesh, k: int, n_iters: int):
     """Step-3 place-walk translation lookups, D position-chunks at a
     time, one per chip, dictionary + translation tables replicated (the
@@ -382,9 +409,10 @@ def make_lookup_flat_sharded(mesh: Mesh, k: int, n_iters: int):
         )
         return he[None], off[None]
 
-    return step
+    return jax.jit(step)
 
 
+@functools.lru_cache(maxsize=None)
 def make_lookup_compact_sharded(mesh: Mesh, k: int, n_iters: int, L: int):
     """Sharded read-pathing lookup: reads data-parallel on the mesh,
     dictionary + translation tables replicated (the multi-chip form of
@@ -410,4 +438,4 @@ def make_lookup_compact_sharded(mesh: Mesh, k: int, n_iters: int, L: int):
             fwd_x, rev_x, ekm, k, n_iters, L,
         )
 
-    return step
+    return jax.jit(step)

@@ -11,7 +11,7 @@ mismatching base, penalty += qual (Q2 mapped to 20) and score += penalty;
 per matching base penalty decays by 20%; read bases running past the edge
 end cost 10 each.
 
-TPU-first shape: instead of per-read recursion, extension runs in rounds —
+Data-parallel shape: instead of per-read recursion, extension runs in rounds —
 all extendable reads score their <=4 candidate edges in one vectorized
 sweep per round (the inner base scan is a fixed-length masked loop).
 """

@@ -12,7 +12,7 @@ alignment offset, and a read is placed when exactly one (edge, offset)
 candidate passes the quality gate: no mismatch at qual >= 30 anywhere in
 the overlap and some 60-base window with <= 4 mismatches.
 
-TPU-first shape: the reference's MapReduce + concurrent-HashSet
+Data-parallel shape: the reference's MapReduce + concurrent-HashSet
 pipeline becomes one sort-join — read kmers and edge kmers are packed
 into uint64 keys, sorted, and range-joined with searchsorted; only the
 per-candidate quality gate (few candidates) runs as a host loop.

@@ -1,7 +1,7 @@
 """Read pathing: dense batched lookup + run-length decode.
 
 Replaces the reference's seed-and-extend BRQ_Pather + path_reads_OMP
-(src/paths/long/BuildReadQGraph.cc:494-560,829-940) with a TPU-native
+(src/paths/long/BuildReadQGraph.cc:494-560,829-940) with a data-parallel
 formulation: every kmer position of every read is looked up in the sorted
 dictionary at once; PathParts are recovered as maximal runs of
 consecutive (edge, offset) hits.  This is exactly equivalent to the
@@ -119,7 +119,7 @@ def _lookup_compact_impl(
     BuildReadQGraph.cc:497-560), so the decode's boundary detection runs
     on device and only the first RUN_SLOTS run starts per read are
     downloaded; the reads ride up as packed rows (4x smaller than byte
-    codes — the upload is the chunk's other big cost on tunneled links).
+    codes).
     Returns (pos_s, e_s, off_s, ekm_s (N, S) int32, nruns (N,) int32);
     a read with nruns > slots signals the caller to fall back to the
     dense path for the chunk.
@@ -349,9 +349,9 @@ def _native_path_lib(force: bool = False):
     if os.environ.get("W2RAP_NATIVE_PATH", "1") in ("0", "false", "off"):
         return None
     if not force:
-        import jax
+        from ..backend import device_path
 
-        if jax.default_backend() != "cpu":
+        if device_path():
             return None
     from .. import native
 
@@ -481,8 +481,6 @@ def path_reads(
     all_edges = []
     all_offs = []
     all_start = []
-    from ..ops.pallas_kmer import pack_rows_host
-
     for start in range(0, n, chunk_reads):
         stop = min(start + chunk_reads, n)
         # pad partial chunks onto the octave grid so the lookup
@@ -492,7 +490,7 @@ def path_reads(
         cl = np.zeros(nb, dtype=np.int32)
         cb[: stop - start] = reads.bases[start:stop]
         cl[: stop - start] = reads.lengths[start:stop]
-        dp = jnp.asarray(pack_rows_host(cb))
+        dp = jnp.asarray(ke.pack_rows_host(cb))
         dl = jnp.asarray(cl)
         if lookup_fn is not None and nb % D == 0:
             pos_s, e_s, off_s, ekm_s, nruns = lookup_fn(

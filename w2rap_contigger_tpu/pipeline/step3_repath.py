@@ -6,7 +6,7 @@ Reference: RepathInMemory (src/paths/long/large/Repath.cc:23-251):
 3. K2 de Bruijn graph from the place sequences (buildBigKHBVFromReads),
 4. read-path translation via the place -> new-path mapping.
 
-TPU redesign: the K2 dictionary uses exact multiword kmers (13 uint32
+Redesign: the K2 dictionary uses exact multiword kmers (13 uint32
 lanes for K=200) in the same sorted-kmer engine instead of the
 reference's hashed BigKMer pointer dictionary (kmers/BigKMer.h:28), and
 path translation is a dense re-pathing of place sequences rather than a
